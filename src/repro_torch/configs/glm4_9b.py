@@ -1,0 +1,14 @@
+"""glm4-9b — dense, RoPE, GQA kv=2 [hf:THUDM/glm-4-9b]."""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="glm4-9b",
+    family="dense",
+    source="hf:THUDM/glm-4-9b",
+    num_layers=40,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=2,
+    d_ff=13696,
+    vocab_size=151552,
+)
