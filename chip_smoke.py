@@ -8,14 +8,21 @@ exit code:
 
   1. card     — name and power limit (nvidia-smi), torch and CUDA versions;
                 TF32 is switched off for matmuls and cuDNN.
-  2. build    — both CUDA kernels built from ``src/repro_torch/kernels/csrc``
-                (one nvcc per source, started together).
+  2. build    — the four CUDA kernels built from
+                ``src/repro_torch/kernels/csrc`` (one nvcc per source,
+                started together).
   3. kernels  — each kernel against its plain PyTorch version on the card:
                 flash attention over the reference test shapes, two ragged
                 shapes and the serving shapes (f32 at 2e-5, bf16 at 3e-2);
                 the J-DOB sweep on the mobilenet cases and the glm4-9b
                 M=6 grid (bitwise against the plain version; against the
-                planner core's grid: same inf pattern, rtol 1e-4, argmin).
+                planner core's grid: same inf pattern, rtol 1e-4, argmin);
+                the GLA scan over the reference test shapes, a ragged L, a
+                starting state, zamba2-7b's serving shape and a 2048-step
+                scan (y at 2e-5 f32, 8e-5 for chunks ≥ 64, 3e-2 bf16;
+                state at 1e-4 / 1e-2); decode attention over the reference
+                test shapes, glm4-9b's and zamba2-7b's decode shapes, for
+                f32, bf16 and f32 queries over a bf16 cache.
   4. planner  — the planner on CUDA against the planner on the CPU for the
                 glm4-9b fleet: equal groups/partitions/offload sets/f_e,
                 bitwise energies.
@@ -30,7 +37,25 @@ exit code:
                 default runs as well.
   6. sweep    — the same wave with the sweep-kernel inner: equal energy,
                 groups and logits, and the sweep kernel launched.
-  7. times    — per call at the serving shapes, under a CUDA graph and
+  7. decode   — glm4-9b (the same weights) prefills 32 tokens per user
+                into a 40-slot cache and decodes 8 more in float32, once on
+                a float32 cache and once on the reference's default
+                bfloat16 cache: prefill's last logits and every step's
+                against the full forward of the 40 tokens (< 5e-3 on the
+                float32 cache; on the bfloat16 cache the gap is printed,
+                since rounding K/V to bfloat16 alone moves full-width
+                logits by more), decode launches = 40 attention layers x 8
+                steps on each, warm ms per step and one step under the
+                profiler.  Then glm4-9b's weights are freed.
+  8. zamba2   — full-width zamba2-7b (81 layers: 68 Mamba2 + 13
+                attention, float32, drawn on the card) serves the same 6
+                requests: the plan, gla launches = 68 and flash launches =
+                13 per (group with offloaded users + group with local
+                users), co-inference vs monolithic < 1e-3, a warm wave
+                under the profiler, peak memory; the reduced CLI with
+                ``--arch zamba2-7b``; then its decode as in phase 7
+                (decode launches = 13 x 8).
+  9. times    — per call at the serving shapes, under a CUDA graph and
                 eager: each kernel, its plain version, the library call
                 where one exists (scaled_dot_product_attention, timed only),
                 and the bound from bytes and FLOPs.
@@ -40,6 +65,7 @@ limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -202,6 +228,111 @@ def check_sweep() -> tuple[float, tuple]:
     return worst, main_args
 
 
+def _close(got, want, atol: float, rtol: float) -> tuple[bool, float]:
+    diff = (got.float() - want.float()).abs()
+    return (bool((diff <= atol + rtol * want.float().abs()).all()),
+            float(diff.max()))
+
+
+GLA_SHAPES = [  # (b, L, h, dk, dv, chunk, with_state)
+    (2, 32, 2, 16, 16, 8, False),            # the reference test sweep
+    (1, 64, 4, 8, 24, 16, False),
+    (2, 128, 1, 64, 64, 128, False),
+    (1, 48, 2, 32, 32, 16, False),
+    (2, 37, 3, 64, 64, 16, False),           # ragged L
+    (2, 48, 4, 64, 64, 16, True),            # from a non-zero state
+    (1, 2048, 8, 64, 64, 256, True),         # a long scan
+]
+ZAMBA_GLA = (USERS, SEQ, 112, 64, 64, 16, False)   # zamba2-7b's wave, b=6
+
+
+def _gla_inputs(shape, dtype, seed=0):
+    """The Mamba2 mixer's layout: q, k contiguous (B, L, H, N), v a
+    strided view of the conv output (B, L, ch) with ch > H·P."""
+    b, L, h, dk, dv, _, with_state = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    q = rnd(b, L, h, dk).to(dtype)
+    k = (rnd(b, L, h, dk) * 0.3).to(dtype)
+    v = rnd(b, L, h * dv + 256).to(dtype)[..., :h * dv].view(b, L, h, dv)
+    ld = -torch.nn.functional.softplus(rnd(b, L, h))
+    s0 = rnd(b, h, dk, dv) * 0.5 if with_state else None
+    return q, k, v, ld, s0
+
+
+def check_gla() -> float:
+    from repro_torch.kernels.gla_scan import gla_scan, gla_scan_plain
+    main_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in GLA_SHAPES + [ZAMBA_GLA]:
+            chunk = shape[5]
+            q, k, v, ld, s0 = _gla_inputs(shape, dtype)
+            y, s = gla_scan(q, k, v, ld, chunk=chunk, state_in=s0)
+            y0, s1 = gla_scan_plain(q, k, v, ld, chunk=chunk, state_in=s0)
+            torch.cuda.synchronize()
+            tol = TOL[dtype]
+            atol = 8e-5 if dtype == torch.float32 and chunk >= 64 else tol
+            ok_y, err_y = _close(y, y0, atol, tol)
+            ok_s, err_s = _close(s, s1, 1e-2 if dtype == torch.bfloat16
+                                 else 1e-4, 1e-2)
+            print(f"gla {str(dtype)[6:]:8s} b={shape[0]} L={shape[1]} "
+                  f"h={shape[2]} dk={shape[3]} dv={shape[4]} chunk={chunk} "
+                  f"state_in={shape[6]}: y max|Δ|={err_y:.3e} (tol {atol}),"
+                  f" state max|Δ|={err_s:.3e}")
+            check(ok_y and ok_s, f"gla kernel vs plain at {shape} {dtype}")
+            if shape == ZAMBA_GLA and dtype == torch.float32:
+                main_err = err_y
+    return main_err
+
+
+DECODE_SHAPES = [  # (b, L, h, kv, hd, pos)
+    (2, 64, 4, 2, 32, 40),                   # the reference test sweep
+    (1, 128, 8, 8, 64, 127),
+    (2, 32, 4, 1, 16, 100),                  # ring, wrapped
+    (1, 64, 2, 2, 128, 10),                  # ring, not yet full
+    (2, 64, 4, 4, 16, 0),                    # first token
+]
+# the decode phases' shapes: 6 users, a 40-slot cache at its last step
+GLM_DECODE = (USERS, 40, 32, 2, 128, 39)
+ZAMBA_DECODE = (USERS, 40, 32, 32, 112, 39)
+DECODE_DTYPES = [(torch.float32, torch.float32),
+                 (torch.bfloat16, torch.bfloat16),
+                 (torch.float32, torch.bfloat16)]   # the model's default
+
+
+def _decode_inputs(shape, q_dtype, c_dtype, seed=0):
+    b, L, h, kv, hd, pos = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(b, 1, h, hd, generator=g, device="cuda").to(q_dtype)
+    k, v = (torch.randn(b, L, kv, hd, generator=g, device="cuda"
+                        ).to(c_dtype) for _ in range(2))
+    return q, k, v, torch.tensor(pos, dtype=torch.int32, device="cuda")
+
+
+def check_decode() -> float:
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    main_err = 0.0
+    for qd, cd in DECODE_DTYPES:
+        for shape in DECODE_SHAPES + [GLM_DECODE, ZAMBA_DECODE]:
+            q, k, v, pos = _decode_inputs(shape, qd, cd)
+            got = decode_attention(q, k, v, pos)
+            want = decode_attention_plain(q, k, v, pos)
+            torch.cuda.synchronize()
+            tol = TOL[torch.bfloat16 if torch.bfloat16 in (qd, cd)
+                      else torch.float32]
+            ok, err = _close(got, want, tol, tol)
+            print(f"decode q {str(qd)[6:]:8s} cache {str(cd)[6:]:8s} "
+                  f"b={shape[0]} L={shape[1]} h={shape[2]} kv={shape[3]} "
+                  f"hd={shape[4]} pos={shape[5]}: max|Δ|={err:.3e} "
+                  f"(tol {tol})")
+            check(ok, f"decode kernel vs plain at {shape} {qd}/{cd}")
+            if shape in (GLM_DECODE, ZAMBA_DECODE) and (qd, cd) == \
+                    DECODE_DTYPES[2]:
+                main_err = max(main_err, err)
+    return main_err
+
+
 # ------------------------------------------------------------- 4. planner
 def check_planner() -> None:
     from repro_torch.configs import ARCHS
@@ -231,37 +362,62 @@ def check_planner() -> None:
 
 
 # --------------------------------------------------------------- 5. serve
-def _reset_counts():
+def _wrappers() -> dict:
+    """Each kernel's wrapper, which counts its launches."""
+    from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.gla_scan import gla_scan
     from repro_torch.kernels.jdob_sweep import jdob_sweep_kernel
-    flash_attention.launches = 0
-    jdob_sweep_kernel.launches = 0
+    return dict(flash_attention=flash_attention, jdob_sweep=jdob_sweep_kernel,
+                decode_attention=decode_attention, gla_scan=gla_scan)
 
 
-def _counts() -> tuple[int, int]:
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.jdob_sweep import jdob_sweep_kernel
-    return flash_attention.launches, jdob_sweep_kernel.launches
+def _reset_counts() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
-def serve_full_width():
+def _counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+#: the published widths each full-width run is held to (configs/*.py)
+FULL_WIDTH = {
+    "glm4-9b": dict(num_layers=40, d_model=4096, num_heads=32,
+                    num_kv_heads=2, head_dim=128, d_ff=13696,
+                    vocab_size=151552),
+    "zamba2-7b": dict(num_layers=81, d_model=3584, num_heads=32,
+                      num_kv_heads=32, head_dim=112, d_ff=14336,
+                      vocab_size=32000, ssm_d_inner=7168, ssm_heads=112,
+                      ssm_head_dim=64, ssm_state=64, ssm_n_groups=2),
+}
+
+
+def _kinds(cfg) -> tuple[int, int]:
+    """(attention layers, Mamba2 layers)."""
+    seq = cfg.layer_sequence()
+    return (sum(s.kind in ("attn", "swa") for s in seq),
+            sum(s.kind == "mamba2" for s in seq))
+
+
+def serve_full_width(name: str, cli: list[str]):
     from repro_torch.configs import ARCHS
     from repro_torch.core import local_computing
     from repro_torch.launch.serve import (build_offline, check_monolithic,
                                           main, print_report)
-    cfg = ARCHS["glm4-9b"]
-    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-           cfg.head_dim, cfg.d_ff, cfg.vocab_size)
-          == (40, 4096, 32, 2, 128, 13696, 151552), "glm4-9b at full width")
+    cfg = ARCHS[name]
+    check(all(getattr(cfg, k) == v for k, v in FULL_WIDTH[name].items()),
+          f"{name} at full width")
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     server, fleet, profile, edge, reqs = build_offline(
         cfg, USERS, SEQ, SEED, device="cuda")
     torch.cuda.synchronize()
-    n_params = (sum(p.numel() for lay in server.executor.params["layers"]
+    params = server.executor.params
+    n_params = (sum(p.numel() for lay in params["layers"]
                     for p in lay.values())
-                + server.executor.params["embed"]["w"].numel()
-                + server.executor.params["lm_head"]["w"].numel()
-                + cfg.d_model)
+                + params["embed"]["w"].numel()
+                + params["lm_head"]["w"].numel() + cfg.d_model)
     print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
           f"{n_params / 1e9:.2f} B float32 parameters drawn on the card in "
           f"{time.perf_counter() - t0:.1f}s")
@@ -270,15 +426,21 @@ def serve_full_width():
     report = server.serve(reqs)                     # the main path
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    flash_n, sweep_n = _counts()
-    expected = sum(cfg.num_layers * (int(s.offload.any())
-                                     + int(not s.offload.all()))
-                   for s in report.schedules)
+    n = _counts()
+    # each layer runs once per group for its offloaded users and once for
+    # its local users
+    passes = sum(int(s.offload.any()) + int(not s.offload.all())
+                 for s in report.schedules)
+    n_attn, n_mamba = _kinds(cfg)
     print_report(server, report, local_computing(profile, fleet, edge),
                  reqs, profile, serve_s)
-    print(f"flash launches {flash_n} (expected {expected}), sweep launches "
-          f"{sweep_n}")
-    check(flash_n == expected, "flash launch count on the main path")
+    print(f"flash launches {n['flash_attention']} (expected "
+          f"{n_attn * passes}), gla launches {n['gla_scan']} (expected "
+          f"{n_mamba * passes}), sweep launches {n['jdob_sweep']}")
+    check(n["flash_attention"] == n_attn * passes,
+          "flash launch count on the main path")
+    check(n["gla_scan"] == n_mamba * passes,
+          "gla launch count on the main path")
     check(check_monolithic(report, server, reqs) < 1e-3,
           "co-inference vs monolithic")
     # warm repeats: the whole wave, and the plan alone
@@ -297,22 +459,107 @@ def serve_full_width():
           f"{plan_s:.3f}s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; max |logit| "
           f"{float(np.abs(report.logits).max()):.3f}")
-    profile_wave(server, reqs)
-    print("reduced CLI default (python -m repro_torch.launch.serve):")
-    main([])
-    return cfg, server, fleet, profile, edge, reqs, report, flash_n
+    profile_run("a warm wave", lambda: server.serve(reqs))
+    print(f"reduced CLI (python -m repro_torch.launch.serve {' '.join(cli)}):")
+    main(cli)
+    return cfg, server, fleet, profile, edge, reqs, report, n
 
 
-def profile_wave(server, reqs) -> None:
-    """One more warm wave under torch.profiler: the device's busy and idle
-    share of the wave's wall time and the kernels that took the time."""
+def _prefill_decode(cfg, params, toks, ctx, cache_dtype, steps: int):
+    """The decode path once: prefill 32 tokens per user into a 40-slot
+    cache of ``cache_dtype``, then ``steps`` decode steps, each path's
+    launch counts set to 0 just before it and read just after.  Returns
+    the logits per step (prefill's last first) and the decode launches."""
+    from repro_torch.models import decode_step, prefill
+    n_attn, n_mamba = _kinds(cfg)
+    _reset_counts()
+    logits, cache = prefill(cfg, params, toks[:, :SEQ], cache_len=SEQ + steps,
+                            cache_dtype=cache_dtype, ctx=ctx)
+    torch.cuda.synchronize()
+    n = _counts()
+    check(n["flash_attention"] == n_attn and n["gla_scan"] == n_mamba,
+          f"prefill launch counts {n}")
+    check(all(c["k"].dtype == cache_dtype for c in cache["layers"]
+              if "k" in c), f"prefill's K/V cache is {cache_dtype}")
+    outs = [logits[:, -1]]
+    _reset_counts()
+    for t in range(steps):                          # the main path, decode
+        lg, cache = decode_step(cfg, params, cache,
+                                toks[:, SEQ + t:SEQ + t + 1], ctx=ctx)
+        outs.append(lg[:, 0])
+    torch.cuda.synchronize()
+    n = _counts()
+    print(f"{str(cache_dtype)[6:]} cache: prefill flash {n_attn} gla "
+          f"{n_mamba}; {steps} steps: decode launches "
+          f"{n['decode_attention']} (expected {n_attn} x {steps}), flash "
+          f"{n['flash_attention']}, gla {n['gla_scan']}; pos "
+          f"{int(cache['pos'])}")
+    check(n["decode_attention"] == n_attn * steps,
+          "decode launch count on the decode path")
+    check(n["flash_attention"] == 0 and n["gla_scan"] == 0,
+          "a decode step launches no prefill kernel")
+    check(int(cache["pos"]) == SEQ + steps, "the cache advanced to 40")
+    return outs, n["decode_attention"]
+
+
+def decode_full_width(cfg, params) -> dict:
+    """Prefill + 8 decode steps in float32, held against the full forward
+    of the 40 tokens: with a float32 cache to 5e-3 (the reference's
+    decode-equivalence bound); with the reference's default bfloat16
+    cache, the main path, the gap is measured and printed.  Then warm ms
+    per step and one step under the profiler, on the bfloat16 cache."""
+    from repro_torch.models import RunCtx, decode_step, forward, prefill
+    steps = 8
+    ctx = RunCtx(cfg, compute_dtype=torch.float32, ssm_chunk=16)
+    rng = np.random.default_rng(SEED + 1)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (USERS, SEQ + steps))).cuda()
+    full = forward(cfg, params, toks, ctx=ctx)
+    want = [full[:, SEQ - 1 + t] for t in range(steps + 1)]
+    result = {}
+    for cache_dtype in (torch.float32, torch.bfloat16):
+        outs, launches = _prefill_decode(cfg, params, toks, ctx, cache_dtype,
+                                         steps)
+        errs = [float((o - w).abs().max()) for o, w in zip(outs, want)]
+        check(all(bool(torch.isfinite(o).all()) for o in outs),
+              "finite decode logits")
+        print(f"{str(cache_dtype)[6:]} cache, logits max |Δ| vs the full "
+              f"forward: prefill {errs[0]:.3e}, decode steps "
+              f"{', '.join(f'{e:.3e}' for e in errs[1:])}; max |logit| "
+              f"{float(full.abs().max()):.3f}")
+        result[cache_dtype] = (max(errs), launches)
+    check(result[torch.float32][0] < 5e-3,
+          "prefill + decode on a float32 cache vs the full forward")
+    # warm, on the reference's default cache: a fresh prefill, steps timed
+    _, cache = prefill(cfg, params, toks[:, :SEQ], cache_len=SEQ + steps,
+                       ctx=ctx)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(steps):
+        _, cache = decode_step(cfg, params, cache,
+                               toks[:, SEQ + t:SEQ + t + 1], ctx=ctx)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    print(f"warm decode step ({USERS} users, float32 weights, bfloat16 "
+          f"cache): {step_ms:.3f} ms")
+    profile_run("a warm decode step",
+                lambda: decode_step(cfg, params, cache, toks[:, -1:],
+                                    ctx=ctx))
+    return dict(launches=result[torch.bfloat16][1],
+                err_f32=result[torch.float32][0],
+                gap_bf16=result[torch.bfloat16][0], step_ms=step_ms)
+
+
+def profile_run(label: str, run) -> None:
+    """``run()`` once more, warm, under torch.profiler: the device's busy
+    and idle share of its wall time and the kernels that took the time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        server.serve(reqs)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -330,7 +577,7 @@ def profile_wave(server, reqs) -> None:
         entry = by_name.setdefault(k.name, [0.0, 0])
         entry[0] += k.time_range.elapsed_us()
         entry[1] += 1
-    print(f"profile of a warm wave: wall {wall_us / 1e3:.2f} ms, device "
+    print(f"profile of {label}: wall {wall_us / 1e3:.2f} ms, device "
           f"busy {busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), idle "
           f"{100 * (1 - busy / wall_us):.1f}%; {len(kernels)} device events")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
@@ -349,7 +596,8 @@ def serve_sweep_inner(cfg, server, fleet, profile, edge, reqs, core_report):
     report = sweep_server.serve(reqs)               # the main path, sweep
     torch.cuda.synchronize()
     wave_s = time.perf_counter() - t0
-    flash_n, sweep_n = _counts()
+    n = _counts()
+    flash_n, sweep_n = n["flash_attention"], n["jdob_sweep"]
     groups = [g.tolist() for g in report.groups]
     print(f"sweep inner: energy {report.energy!r} vs core "
           f"{core_report.energy!r}, groups {groups}; sweep launches "
@@ -364,7 +612,7 @@ def serve_sweep_inner(cfg, server, fleet, profile, edge, reqs, core_report):
     return sweep_n
 
 
-# --------------------------------------------------------------- 7. times
+# --------------------------------------------------------------- 9. times
 def time_eager(fn, iters: int = 200) -> float:
     for _ in range(10):
         fn()
@@ -407,10 +655,37 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def times(b: int, sweep_args) -> dict:
+def _time_all(fns: dict) -> dict:
+    """{name: (ms per call under a CUDA graph, ms per call eager)}."""
+    return {n: (time_graph(f), time_eager(f)) for n, f in fns.items()}
+
+
+def _line(name: str, t: dict, bound) -> str:
+    parts = ", ".join(f"{n} {g:.5f} / {e:.5f}" for n, (g, e) in t.items())
+    return (f"{name}, ms per call graph / eager: {parts}; bound "
+            f"{bound[0]:.7f} ms by {bound[1]}")
+
+
+def gla_flops(L: int, chunk: int, dk: int, dv: int) -> float:
+    """Float ops of one (batch, head) scan: per chunk of n steps the causal
+    scores and their product with v (n(n+1)/2 pairs), the inter-chunk term
+    and the state update (n·dk·dv each), two ops per multiply-add."""
+    ops, c = 0.0, min(chunk, L)
+    for c0 in range(0, L, c):
+        n = min(c, L - c0)
+        ops += 2.0 * (n * (n + 1) // 2) * (dk + dv) + 4.0 * n * dk * dv
+    return ops
+
+
+def times(b: int, sweep_args, b_z: int) -> dict:
+    """``b``: the largest batch of glm4-9b's wave; ``b_z``: of zamba2-7b's
+    wave (the gla kernel's serving batch)."""
     import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
+    from repro_torch.kernels.gla_scan import gla_scan, gla_scan_plain
     from repro_torch.kernels.jdob_sweep import (jdob_sweep_kernel,
                                                 jdob_sweep_plain)
     shape = (b, SEQ, SEQ, 32, 2, 128, True, None)
@@ -427,30 +702,117 @@ def times(b: int, sweep_args) -> dict:
     }
     lib_err = float((fns["library"]().reshape(q.shape) - fns["kernel"]()
                      ).abs().max())
-    flash = {n: (time_graph(f), time_eager(f)) for n, f in fns.items()}
+    flash = _time_all(fns)
     elems = q.numel() * 2 + k.numel() + v.numel()
     pairs = SEQ * (SEQ + 1) // 2                    # causal (q, k) pairs
     flash_bound = bound_ms(4 * elems, 4.0 * hd * pairs * b * h)
-    print(f"flash b={b} h={h} kv={kv} s={SEQ} hd={hd} f32, ms per call "
-          f"graph / eager: kernel {flash['kernel'][0]:.5f} / "
-          f"{flash['kernel'][1]:.5f}, plain {flash['plain'][0]:.5f} / "
-          f"{flash['plain'][1]:.5f}, sdpa {flash['library'][0]:.5f} / "
-          f"{flash['library'][1]:.5f} (sdpa |Δ| vs kernel {lib_err:.2e}); "
-          f"bound {flash_bound[0]:.6f} ms by {flash_bound[1]}")
+    print(_line(f"flash b={b} h={h} kv={kv} s={SEQ} hd={hd} f32", flash,
+                flash_bound) + f" (sdpa |Δ| vs kernel {lib_err:.2e})")
     NP, M = sweep_args[0].shape
     K = sweep_args[-1].shape[1]
-    sw = {"kernel": lambda: jdob_sweep_kernel(*sweep_args),
-          "plain": lambda: jdob_sweep_plain(*sweep_args)}
-    sweep = {n: (time_graph(f), time_eager(f)) for n, f in sw.items()}
+    sweep = _time_all({"kernel": lambda: jdob_sweep_kernel(*sweep_args),
+                       "plain": lambda: jdob_sweep_plain(*sweep_args)})
     n_bytes = 4 * (9 * NP * M + NP * 8 + NP * K + NP * K)
     # per cell: 19 float ops per user (membership, l_o, slack, Eq. 19-21,
     # row sum) + 13 per cell (phi, psi, Eq. 6, phi/f, psi·f², select)
     sweep_bound = bound_ms(n_bytes, NP * K * (19 * M + 13))
-    print(f"sweep NP={NP} K={K} M={M}, ms per call graph / eager: kernel "
-          f"{sweep['kernel'][0]:.5f} / {sweep['kernel'][1]:.5f}, plain "
-          f"{sweep['plain'][0]:.5f} / {sweep['plain'][1]:.5f}; bound "
-          f"{sweep_bound[0]:.7f} ms by {sweep_bound[1]}")
-    return dict(flash=(flash, flash_bound), sweep=(sweep, sweep_bound))
+    print(_line(f"sweep NP={NP} K={K} M={M}", sweep, sweep_bound))
+
+    # the scan at zamba2-7b's wave shape: 112 heads, 32 steps, N = P = 64
+    gshape = (b_z,) + ZAMBA_GLA[1:]
+    _, L, gh, dk, dv, chunk, _ = gshape
+    gq, gk, gv, gld, _ = _gla_inputs(gshape, torch.float32, seed=1)
+    gla = _time_all({
+        "kernel": lambda: gla_scan(gq, gk, gv, gld, chunk=chunk),
+        "plain": lambda: gla_scan_plain(gq, gk, gv, gld, chunk=chunk)})
+    rows = b_z * L * gh
+    gla_bound = bound_ms(4 * (rows * (2 * dk + 2 * dv + 1)
+                              + b_z * gh * dk * dv),
+                         b_z * gh * gla_flops(L, chunk, dk, dv))
+    print(_line(f"gla b={b_z} L={L} h={gh} dk={dk} dv={dv} chunk={chunk} "
+                "f32", gla, gla_bound) + " (no single PyTorch call "
+          "computes it)")
+
+    # decode at each model's last step: f32 queries over the bf16 cache
+    dec = {}
+    for label, dshape in (("glm4-9b", GLM_DECODE),
+                          ("zamba2-7b", ZAMBA_DECODE)):
+        dq, dk_, dv_, pos = _decode_inputs(dshape, torch.float32,
+                                           torch.bfloat16, seed=1)
+        db, dL, dh, dkv, dhd, dpos = dshape
+        n_valid = min(dpos + 1, dL)
+        dq16 = dq.to(torch.bfloat16).view(db, dh, 1, dhd)
+        kt, vt = (x[:, :n_valid].transpose(1, 2) for x in (dk_, dv_))
+        t = _time_all({
+            "kernel": lambda: decode_attention(dq, dk_, dv_, pos),
+            "plain": lambda: decode_attention_plain(dq, dk_, dv_, pos),
+            "library": lambda: F.scaled_dot_product_attention(
+                dq16, kt, vt, enable_gqa=True)})
+        d_bound = bound_ms(4 * 2 * db * dh * dhd
+                           + 2 * 2 * db * n_valid * dkv * dhd,
+                           4.0 * db * dh * n_valid * dhd)
+        print(_line(f"decode {label} b={db} L={dL} pos={dpos} h={dh} "
+                    f"kv={dkv} hd={dhd} f32 q / bf16 cache", t, d_bound)
+              + " (library: sdpa on bf16 q, timed only)")
+        dec[label] = (t, d_bound)
+    return dict(flash=(flash, flash_bound), sweep=(sweep, sweep_bound),
+                gla=(gla, gla_bound), decode=dec["glm4-9b"])
+
+
+def _largest_batch(report) -> int:
+    """The largest batch the wave handed a kernel: an offloaded batch or a
+    group's local users."""
+    return max(max(s.batch_size, len(s.offload) - s.batch_size)
+               for s in report.schedules)
+
+
+def glm4_phases() -> dict:
+    phase("serve: full-width glm4-9b, core inner")
+    cfg, server, fleet, profile, edge, reqs, report, n = serve_full_width(
+        "glm4-9b", [])
+    phase("serve: sweep-kernel inner")
+    sweep_n = serve_sweep_inner(cfg, server, fleet, profile, edge, reqs,
+                                report)
+    phase("decode: full-width glm4-9b")
+    dec = decode_full_width(cfg, server.executor.params)
+    return dict(flash_n=n["flash_attention"], sweep_n=sweep_n,
+                b=_largest_batch(report), decode=dec)
+
+
+def zamba2_phases() -> dict:
+    phase("serve: full-width zamba2-7b")
+    cfg, server, _, _, _, _, report, n = serve_full_width(
+        "zamba2-7b", ["--arch", "zamba2-7b"])
+    phase("decode: full-width zamba2-7b")
+    dec = decode_full_width(cfg, server.executor.params)
+    return dict(flash_n=n["flash_attention"], gla_n=n["gla_scan"],
+                b=_largest_batch(report), decode=dec)
+
+
+def _free() -> None:
+    """Give the last model's weights back before the next is drawn."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"device memory after freeing: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+
+
+def _record(name, launches, err, t, bound, library=True) -> dict:
+    return dict(name=name, route="cuda",
+                source=f"src/repro_torch/kernels/csrc/{name}.cu",
+                replaces=REPLACES[name], launches=launches,
+                max_abs_err=err, ms=t["kernel"][0], plain_ms=t["plain"][0],
+                bound_ms=bound[0], bound_by=bound[1],
+                library_ms=t["library"][0] if library else None)
+
+
+#: the Pallas TPU kernel each CUDA kernel replaces
+REPLACES = {
+    "flash_attention": "src/repro/kernels/flash_attention.py:83",
+    "jdob_sweep": "src/repro/kernels/jdob_sweep.py:64",
+    "gla_scan": "src/repro/kernels/gla_scan.py:64",
+    "decode_attention": "src/repro/kernels/decode_attention.py:61",
+}
 
 
 def main() -> None:
@@ -461,37 +823,36 @@ def main() -> None:
     phase("kernels vs plain")
     flash_err = check_flash()
     sweep_err, sweep_args = check_sweep()
+    gla_err = check_gla()
+    decode_err = check_decode()
     phase("planner: cuda vs cpu")
     check_planner()
-    phase("serve: full-width glm4-9b, core inner")
-    cfg, server, fleet, profile, edge, reqs, report, flash_n = \
-        serve_full_width()
-    phase("serve: sweep-kernel inner")
-    sweep_n = serve_sweep_inner(cfg, server, fleet, profile, edge, reqs,
-                                report)
+    glm = glm4_phases()
+    _free()
+    zam = zamba2_phases()
+    _free()
     phase("times")
-    # the largest batch the main path handed the flash kernel: an offloaded
-    # batch or a group's local users
-    b = max(max(s.batch_size, len(s.offload) - s.batch_size)
-            for s in report.schedules)
-    t = times(b, sweep_args)
-    flash, flash_bound = t["flash"]
-    sweep, sweep_bound = t["sweep"]
+    t = times(glm["b"], sweep_args, zam["b"])
+    flash_n = glm["flash_n"] + zam["flash_n"]
+    decode_n = glm["decode"]["launches"] + zam["decode"]["launches"]
+    for name, r in (("glm4-9b", glm), ("zamba2-7b", zam)):
+        print(f"{name} decode vs full forward: float32 cache "
+              f"{r['decode']['err_f32']:.3e} (limit 5e-3), bfloat16 cache "
+              f"{r['decode']['gap_bf16']:.3e} (measured)")
+    print(f"launches on the main paths: flash {glm['flash_n']} (glm4-9b "
+          f"wave) + {zam['flash_n']} (zamba2-7b wave), sweep "
+          f"{glm['sweep_n']} (sweep-inner wave), gla {zam['gla_n']} "
+          f"(zamba2-7b wave), decode {glm['decode']['launches']} (glm4-9b) "
+          f"+ {zam['decode']['launches']} (zamba2-7b); warm decode step "
+          f"{glm['decode']['step_ms']:.3f} ms (glm4-9b), "
+          f"{zam['decode']['step_ms']:.3f} ms (zamba2-7b)")
     kernels = [
-        dict(name="flash_attention", route="cuda",
-             source="src/repro_torch/kernels/csrc/flash_attention.cu",
-             replaces="src/repro/kernels/flash_attention.py:83",
-             launches=flash_n, max_abs_err=flash_err,
-             ms=flash["kernel"][0], plain_ms=flash["plain"][0],
-             bound_ms=flash_bound[0], bound_by=flash_bound[1],
-             library_ms=flash["library"][0]),
-        dict(name="jdob_sweep", route="cuda",
-             source="src/repro_torch/kernels/csrc/jdob_sweep.cu",
-             replaces="src/repro/kernels/jdob_sweep.py:64",
-             launches=sweep_n, max_abs_err=sweep_err,
-             ms=sweep["kernel"][0], plain_ms=sweep["plain"][0],
-             bound_ms=sweep_bound[0], bound_by=sweep_bound[1],
-             library_ms=None),
+        _record("flash_attention", flash_n, flash_err, *t["flash"]),
+        _record("jdob_sweep", glm["sweep_n"], sweep_err, *t["sweep"],
+                library=False),
+        _record("gla_scan", zam["gla_n"], gla_err, *t["gla"],
+                library=False),
+        _record("decode_attention", decode_n, decode_err, *t["decode"]),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -29,7 +29,7 @@ COMMON_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 #: per-source extra flags: the sweep must not contract multiply-adds, so
 #: it stays bitwise equal to its plain version
 EXTRA_FLAGS = {"jdob_sweep": ["-fmad=false"]}
-KERNELS = ("flash_attention", "jdob_sweep")
+KERNELS = ("flash_attention", "jdob_sweep", "decode_attention", "gla_scan")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

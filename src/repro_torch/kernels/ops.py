@@ -2,9 +2,12 @@
 model and the planner use (counterpart of ``repro.kernels.ops``).
 
 Shape plumbing: the model layers use (B, S, H, hd) GQA tensors; the
-attention kernel takes head-folded (B·H, S, hd).  The sweep's host side —
-Alg. 1's sort and the GHz/s/J scaling — runs in numpy; the (ñ × f_e) grid
-runs in :func:`~repro_torch.kernels.jdob_sweep.jdob_sweep_kernel` on the
+prefill attention kernel takes head-folded (B·H, S, hd), while the decode
+attention and GLA scan kernels read the model's layout through strides,
+so their entry points hand the tensors straight over.  The sweep's host
+side — Alg. 1's sort and the GHz/s/J scaling — runs in numpy; the
+(ñ × f_e) grid runs in
+:func:`~repro_torch.kernels.jdob_sweep.jdob_sweep_kernel` on the
 planner's device.
 """
 from __future__ import annotations
@@ -13,7 +16,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from .decode_attention import decode_attention
 from .flash_attention import flash_attention
+from .gla_scan import gla_scan
 from .jdob_sweep import jdob_sweep_kernel
 
 
@@ -39,6 +44,30 @@ def flash_attention_op(q, k, v, *, causal: bool = True,
     o = flash_attention(qf, kf, vf, causal=causal, window=window, n_rep=rep)
     sq, hd = q.shape[1], q.shape[3]
     return o.reshape(b, h, sq, hd).transpose(1, 2)
+
+
+def decode_attention_op(q, k_cache, v_cache, pos, *, ring: bool = False):
+    """Drop-in for :func:`repro_torch.models.layers.decode_attention`:
+    q (B, 1, H, hd) over (B, L, KV, hd) caches (KV | H) at position
+    ``pos`` (a 0-d int32 tensor on the caches' device, or an int) →
+    (B, 1, H, hd) in q's dtype.  The hand-written kernel on CUDA tensors,
+    its plain version on CPU tensors.  ``ring`` is the reference op's
+    flag; on a cache's slots 0..L-1 the ring rule (``slot < min(pos + 1,
+    L)``) and the full rule (``slot <= pos``) select the same slots, so
+    the result does not depend on it."""
+    del ring
+    return decode_attention(q, k_cache, v_cache, pos)
+
+
+def gla_scan_op(q, k, v, log_decay, *, chunk: int = 256, state_in=None):
+    """Drop-in for :func:`repro_torch.models.ssm.gla_chunked`.
+    q, k: (B, L, H, Dk); v: (B, L, H, Dv); log_decay: (B, L, H); state_in:
+    None (zeros) or (B, H, Dk, Dv).  Returns (y (B, L, H, Dv) in q's dtype,
+    float32 state (B, H, Dk, Dv)); L need not be a multiple of ``chunk``.
+    The hand-written kernel on CUDA tensors, its plain version on CPU
+    tensors."""
+    return gla_scan(q, k, v, log_decay.float(), chunk=chunk,
+                    state_in=None if state_in is None else state_in.float())
 
 
 def sweep_inputs(profile, fleet, edge, t_free=0.0, rho=0.03e9):

@@ -1,3 +1,5 @@
-from .model import RunCtx, forward, init_params
+from .model import (RunCtx, decode_step, forward, init_cache, init_params,
+                    prefill)
 
-__all__ = ["RunCtx", "forward", "init_params"]
+__all__ = ["RunCtx", "decode_step", "forward", "init_cache", "init_params",
+           "prefill"]

@@ -24,14 +24,16 @@ def flatten_layers(cfg: ArchConfig, params) -> list[tuple[Any, Any]]:
 @dataclasses.dataclass
 class BlockwiseExecutor:
     """Runs arbitrary block ranges of a model — the engine the paper's
-    offloading needs (device prefix / edge suffix).  Computes in float32,
-    as the reference executor does, on the device its params live on."""
+    offloading needs (device prefix / edge suffix).  Computes in float32
+    with 16-step SSM scan chunks, as the reference executor does, on the
+    device its params live on."""
     cfg: ArchConfig
     params: Any
     ctx: RunCtx = None
 
     def __post_init__(self):
-        self.ctx = self.ctx or RunCtx(self.cfg, compute_dtype=torch.float32)
+        self.ctx = self.ctx or RunCtx(self.cfg, compute_dtype=torch.float32,
+                                      ssm_chunk=16)
         self.layers = flatten_layers(self.cfg, self.params)
         self.device = self.params["embed"]["w"].device
 

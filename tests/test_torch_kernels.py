@@ -11,15 +11,21 @@ import pytest
 import torch
 
 import repro.core as jcore
+from repro.kernels import decode_attention_op as ref_decode_op
 from repro.kernels import flash_attention_op as ref_flash_op
+from repro.kernels import gla_scan_op as ref_gla_op
 from repro.kernels import jdob_sweep_op as ref_sweep_op
 from repro_torch.core import (make_edge_profile, make_fleet,
                               mobilenet_v2_profile)
-from repro_torch.kernels import flash_attention_op, jdob_sweep_op
+from repro_torch.kernels import (decode_attention_op, flash_attention_op,
+                                 gla_scan_op, jdob_sweep_op)
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.gla_scan import gla_scan
 from repro_torch.kernels.jdob_sweep import (jdob_sweep_kernel,
                                             jdob_sweep_plain)
 from repro_torch.kernels.ops import sweep_inputs
-from repro_torch.kernels.ref import jdob_sweep_ref
+from repro_torch.kernels.ref import (decode_attention_ref, gla_scan_ref,
+                                     jdob_sweep_ref)
 
 #: the reference kernel tests' tolerances (tests/kernels/test_kernels.py)
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
@@ -29,6 +35,19 @@ FLASH_SHAPES = [  # b, sq, sk, h, kv, hd, block_q, block_k, window
     (2, 64, 64, 8, 1, 16, 64, 32, None),         # MQA
     (1, 128, 128, 2, 2, 128, 32, 32, 32),        # sliding window
     (1, 32, 32, 2, 2, 8, 32, 32, None),          # single block
+]
+DECODE_SHAPES = [  # b, L, h, kv, hd, block_k, pos, ring
+    (2, 64, 4, 2, 32, 16, 40, False),
+    (1, 128, 8, 8, 64, 64, 127, False),
+    (2, 32, 4, 1, 16, 32, 100, True),            # ring cache, wrapped
+    (1, 64, 2, 2, 128, 16, 10, True),            # ring cache, not yet full
+    (2, 64, 4, 4, 16, 64, 0, False),             # first token
+]
+GLA_SHAPES = [  # b, L, h, dk, dv, chunk
+    (2, 32, 2, 16, 16, 8),
+    (1, 64, 4, 8, 24, 16),                       # Dk != Dv (mLSTM normalizer)
+    (2, 128, 1, 64, 64, 128),                    # one chunk
+    (1, 48, 2, 32, 32, 16),
 ]
 SWEEP_CASES = [(4, 2.13, 0, 0.0), (8, (0.0, 10.0), 3, 1e-3),
                (12, 30.25, 1, 0.0), (1, 5.0, 2, 0.0)]
@@ -54,6 +73,78 @@ def test_flash_plain_matches_reference_kernel(dtype, b, sq, sk, h, kv, hd,
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want.astype(jnp.float32)),
                                atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def _np_rand(rng, shape, scale=1.0):
+    return (rng.standard_normal(shape, dtype=np.float32) * scale
+            ).astype(np.float32)
+
+
+def _close(got, want, atol, rtol):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,L,h,kv,hd,bk,pos,ring", DECODE_SHAPES)
+def test_decode_plain_matches_reference_kernel(dtype, b, L, h, kv, hd, bk,
+                                               pos, ring):
+    """The plain version against the reference's Pallas decode kernel (and
+    the port's own oracle) at the reference test's tolerances.  The plain
+    version rounds the probabilities to the cache's dtype, as the model
+    path does and the Pallas kernel does not: bf16 differs by at most a
+    bf16 rounding of each probability, inside 3e-2."""
+    rng = np.random.default_rng(1)
+    q, k, v = (_np_rand(rng, s) for s in ((b, 1, h, hd), (b, L, kv, hd),
+                                          (b, L, kv, hd)))
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    want = ref_decode_op(*(jnp.asarray(x).astype(jd) for x in (q, k, v)),
+                         jnp.asarray(pos), ring=ring, block_k=bk,
+                         interpret=True)
+    tq, tk, tv = (torch.from_numpy(x).to(td) for x in (q, k, v))
+    launches = decode_attention.launches
+    tpos = torch.tensor(pos, dtype=torch.int32)
+    got = decode_attention_op(tq, tk, tv, tpos, ring=ring)
+    assert got.dtype == td and got.shape == (b, 1, h, hd)
+    assert decode_attention.launches == launches    # CPU: no kernel launch
+    _close(got, want, TOL[dtype], TOL[dtype])
+    oracle = decode_attention_ref(tq, tk, tv, pos, ring=ring)
+    torch.testing.assert_close(got.float(), oracle.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,L,h,dk,dv,chunk", GLA_SHAPES)
+def test_gla_plain_matches_reference_kernel(dtype, b, L, h, dk, dv, chunk):
+    """The plain version against the reference's Pallas scan kernel, with
+    the reference test's tolerances: f32 2e-5 (8e-5 for chunks ≥ 64, where
+    the float32 accumulation error grows with the chunk's width), bf16
+    3e-2; the state at 1e-4 (f32) / 1e-2 (bf16).  And against the
+    port's step-recurrence oracle."""
+    rng = np.random.default_rng(2)
+    q = _np_rand(rng, (b, L, h, dk))
+    k = _np_rand(rng, (b, L, h, dk), 0.3)
+    v = _np_rand(rng, (b, L, h, dv))
+    ld = -np.logaddexp(rng.standard_normal((b, L, h)), 0).astype(np.float32)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    y_want, s_want = ref_gla_op(*(jnp.asarray(x).astype(jd)
+                                  for x in (q, k, v)), jnp.asarray(ld),
+                                chunk=chunk, interpret=True)
+    tq, tk, tv = (torch.from_numpy(x).to(td) for x in (q, k, v))
+    launches = gla_scan.launches
+    y, s = gla_scan_op(tq, tk, tv, torch.from_numpy(ld), chunk=chunk)
+    assert y.dtype == td and y.shape == (b, L, h, dv)
+    assert s.dtype == torch.float32 and s.shape == (b, h, dk, dv)
+    assert gla_scan.launches == launches            # CPU: no kernel launch
+    atol = TOL[dtype] if dtype == "bfloat16" or chunk < 64 else 8e-5
+    s_atol = 1e-2 if dtype == "bfloat16" else 1e-4
+    _close(y, y_want, atol, TOL[dtype])
+    _close(s, s_want, s_atol, 1e-2)
+    y_ref, s_ref = gla_scan_ref(tq, tk, tv, torch.from_numpy(ld))
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=atol,
+                               rtol=TOL[dtype])
+    torch.testing.assert_close(s, s_ref, atol=s_atol, rtol=1e-2)
 
 
 @pytest.mark.parametrize("M,beta,seed,t_free", SWEEP_CASES)

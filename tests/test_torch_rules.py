@@ -6,6 +6,7 @@ package ``repro``.  Its entry points run on CUDA unless the caller passes
 plain version only for CPU tensors: anything else launches the kernel or
 raises, and a failed build raises too."""
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -15,20 +16,24 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.configs import ARCHS
+from repro_torch.configs import ARCHS, LayerSpec
 from repro_torch.core import (PlannerService, jdob_schedule,
                               make_edge_profile, make_fleet,
                               mobilenet_v2_profile)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import jdob_sweep_op
+from repro_torch.kernels.decode_attention import _launch as decode_launch
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import _launch as flash_launch
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.gla_scan import _launch as gla_launch
+from repro_torch.kernels.gla_scan import gla_scan
 from repro_torch.kernels.jdob_sweep import _launch as sweep_launch
 from repro_torch.kernels.jdob_sweep import jdob_sweep_kernel
 from repro_torch.kernels.ops import sweep_inputs
 from repro_torch.launch.serve import build_offline
-from repro_torch.models import init_params
+from repro_torch.models import init_cache, init_params
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = Path(repro_torch.__file__).resolve().parent
@@ -94,6 +99,10 @@ def test_entry_points_raise_without_gpu(no_gpu):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_params(ARCHS["glm4-9b"].reduced())
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_offline(ARCHS["zamba2-7b"].reduced(), 2, 8, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_cache(ARCHS["zamba2-7b"].reduced(), 2, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         PlannerService(prof, edge)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         jdob_schedule(prof, fleet, edge)
@@ -117,6 +126,51 @@ def test_flash_wrapper_raises_instead_of_computing():
     assert flash_attention.launches == launches
 
 
+def test_decode_wrapper_raises_instead_of_computing():
+    q = torch.zeros(2, 1, 4, 16)
+    kv = torch.zeros(2, 8, 2, 16)
+    pos = torch.tensor(3, dtype=torch.int32)
+    launches = decode_attention.launches
+    with pytest.raises(ValueError, match="runs on cuda or cpu"):
+        decode_attention(q.to("meta"), kv.to("meta"), kv.to("meta"), 3)
+    with pytest.raises(ValueError, match="not a CUDA tensor"):
+        decode_launch(q, kv, kv, pos)
+    with pytest.raises(TypeError):
+        decode_attention(q.double(), kv.double(), kv.double(), pos)
+    with pytest.raises(ValueError, match="KV must divide H"):
+        decode_attention(torch.zeros(2, 1, 3, 16), kv, kv, pos)
+    assert decode_attention.launches == launches
+
+
+def test_gla_wrapper_raises_instead_of_computing():
+    q = torch.zeros(2, 8, 3, 16)
+    ld = torch.zeros(2, 8, 3)
+    launches = gla_scan.launches
+    with pytest.raises(ValueError, match="runs on cuda or cpu"):
+        gla_scan(q.to("meta"), q.to("meta"), q.to("meta"), ld.to("meta"))
+    with pytest.raises(ValueError, match="not a CUDA tensor"):
+        gla_launch(q, q, q, ld, None, 4)
+    with pytest.raises(TypeError):
+        gla_scan(q.double(), q.double(), q.double(), ld)
+    with pytest.raises(TypeError, match="log_decay"):
+        gla_scan(q, q, q, ld.double())
+    with pytest.raises(ValueError, match="state_in"):
+        gla_scan(q, q, q, ld, state_in=torch.zeros(2, 3, 16, 8))
+    assert gla_scan.launches == launches
+
+
+@pytest.mark.parametrize("part", ["cross", "mlstm", "slstm", "moe"])
+def test_unported_layers_name_their_roadmap_item(part):
+    cfg = ARCHS["zamba2-7b"].reduced()
+    spec = (LayerSpec("attn", "moe") if part == "moe"
+            else LayerSpec(part, "none"))
+    cfg = dataclasses.replace(cfg, plan=(((cfg.plan[0][0][0], spec), 1),))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 11"):
+        init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match=repr(part)):
+        init_cache(cfg, 1, 8, device="cpu")
+
+
 def test_sweep_wrapper_raises_instead_of_computing():
     prof = mobilenet_v2_profile()
     edge = make_edge_profile(prof)
@@ -138,3 +192,13 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         kbuild.build(("jdob_sweep",))
     assert not list(tmp_path.iterdir())     # nothing half-built is left
+
+
+@pytest.mark.parametrize("name", ["decode_attention", "gla_scan"])
+def test_failed_build_of_new_kernels_raises(monkeypatch, tmp_path, name):
+    monkeypatch.setattr(kbuild, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(kbuild, "nvcc_path", lambda: "false")
+    assert name in kbuild.KERNELS
+    with pytest.raises(RuntimeError, match=f"nvcc failed for {name}"):
+        kbuild.build((name,))
+    assert not list(tmp_path.iterdir())

@@ -1,4 +1,5 @@
-"""The port's offline wave against the reference's, on the reduced glm4-9b.
+"""The port's offline wave against the reference's, on the reduced glm4-9b
+and the reduced zamba2-7b (one Mamba2 layer, one attention layer).
 
 The reference's ``init_params`` weights are carried across with
 ``repro_torch.convert.params_from_jax`` so both packages compute the same
@@ -6,6 +7,7 @@ function; the port runs its plain PyTorch path on the CPU.  Logits are
 held at atol 1e-4 in float32 (measured max |Δ| ≈ 1e-6: the two packages
 sum matmuls in different orders); plans are compared exactly."""
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -14,6 +16,7 @@ import repro.core as J
 import repro_torch.core as T
 from repro.configs import ARCHS as J_ARCHS
 from repro.models import forward as j_forward
+from repro.models import RunCtx as JRunCtx
 from repro.models import init_params as j_init
 from repro.models.layers import blockwise_attention as j_attention
 from repro.models.layers import rms_norm as j_rms_norm
@@ -23,6 +26,7 @@ from repro.serving import Request as JRequest
 from repro_torch.configs import ARCHS as T_ARCHS
 from repro_torch.convert import params_from_jax
 from repro_torch.launch import serve as tserve
+from repro_torch.models import RunCtx
 from repro_torch.models import forward as t_forward
 from repro_torch.models import init_params as t_init
 from repro_torch.models.layers import blockwise_attention, rms_norm, rope
@@ -32,12 +36,11 @@ CPU = "cpu"
 USERS, SEQ, SEED = 6, 32, 0
 
 
-@pytest.fixture(scope="module")
-def wave():
-    """Both packages' offline wave on the reduced glm4-9b, same weights,
+def _wave(arch: str) -> dict:
+    """Both packages' offline wave on the reduced ``arch``, same weights,
     fleet and tokens as ``serve.py``'s defaults."""
-    jcfg = J_ARCHS["glm4-9b"].reduced()
-    tcfg = T_ARCHS["glm4-9b"].reduced()
+    jcfg = J_ARCHS[arch].reduced()
+    tcfg = T_ARCHS[arch].reduced()
     jparams = j_init(jcfg, jax.random.PRNGKey(SEED))
     tparams = params_from_jax(tcfg, jax.tree.map(np.asarray, jparams),
                               device=CPU)
@@ -60,14 +63,72 @@ def wave():
                 tserver=tserver, treqs=treqs, toks=toks)
 
 
-def test_serve_plan_matches_reference(wave):
-    a, b = wave["jreport"], wave["treport"]
+@pytest.fixture(scope="module")
+def wave():
+    return _wave("glm4-9b")
+
+
+@pytest.fixture(scope="module")
+def zwave():
+    return _wave("zamba2-7b")
+
+
+def _plans_equal(a, b):
     assert a.energy == b.energy
     assert a.batch_sizes == b.batch_sizes
     assert a.partitions == b.partitions
     assert a.t_free_end == b.t_free_end
     assert [g.tolist() for g in a.groups] == [g.tolist() for g in b.groups]
     np.testing.assert_array_equal(a.per_user_energy, b.per_user_energy)
+
+
+def test_serve_plan_matches_reference(wave):
+    _plans_equal(wave["jreport"], wave["treport"])
+
+
+def test_zamba2_serve_plan_matches_reference(zwave):
+    _plans_equal(zwave["jreport"], zwave["treport"])
+
+
+def test_zamba2_serve_logits_match_reference(zwave):
+    got, want = zwave["treport"].logits, zwave["jreport"].logits
+    assert got.shape == want.shape == (USERS, SEQ, zwave["tcfg"].vocab_size)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
+def test_zamba2_coinference_equals_monolithic(zwave):
+    err = tserve.verify(zwave["treport"].logits, zwave["tserver"].executor,
+                        zwave["treqs"])
+    assert err < 1e-3
+
+
+def test_zamba2_forward_matches_reference(zwave):
+    """float32, the default 256-step scan chunk (one chunk at 32 tokens)."""
+    toks = np.stack(zwave["toks"][:2])
+    want, _ = j_forward(zwave["jcfg"], zwave["jparams"], toks,
+                        ctx=JRunCtx(zwave["jcfg"], compute_dtype=jnp.float32))
+    got = t_forward(zwave["tcfg"], zwave["tparams"], torch.as_tensor(toks),
+                    ctx=RunCtx(zwave["tcfg"], compute_dtype=torch.float32))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=0)
+
+
+def test_params_from_jax_carries_mamba2_leaves(zwave):
+    """Every leaf of every layer crosses, with the shapes and dtypes the
+    port's own ``init_params`` draws (A_log, dt_bias and D float32)."""
+    own = t_init(zwave["tcfg"], seed=0, device=CPU)
+    got = zwave["tparams"]
+    assert len(got["layers"]) == len(own["layers"]) == 2
+    for lg, lo in zip(got["layers"], own["layers"]):
+        assert sorted(lg) == sorted(lo)
+        for name in lg:
+            assert lg[name].shape == lo[name].shape, name
+            assert lg[name].dtype == lo[name].dtype == torch.float32, name
+    assert {"in_proj", "conv_w", "dt_bias", "A_log", "D", "norm",
+            "out_proj"} <= set(got["layers"][0])
+    np.testing.assert_array_equal(
+        got["layers"][0]["A_log"].numpy(),
+        np.asarray(zwave["jparams"]["segments"][0][0]["A_log"][0]))
 
 
 def test_serve_logits_match_reference(wave):
@@ -120,6 +181,11 @@ def test_cli_default_serves_on_cpu(flags):
     """The default offline wave; options that only the online and tenancy
     paths read are accepted and leave the offline wave as it is."""
     out = tserve.main(["--device", "cpu", *flags])
+    assert out["err"] < 1e-3 and out["energy"] < out["lc"]
+
+
+def test_cli_serves_zamba2_on_cpu():
+    out = tserve.main(["--device", "cpu", "--arch", "zamba2-7b"])
     assert out["err"] < 1e-3 and out["energy"] < out["lc"]
 
 
