@@ -18,10 +18,13 @@ exit code:
                 M=6 grid (bitwise against the plain version; against the
                 planner core's grid: same inf pattern, rtol 1e-4, argmin);
                 the GLA scan over the reference test shapes, a ragged L, a
-                starting state, zamba2-7b's serving shape and a 2048-step
-                scan (y at 2e-5 f32, 8e-5 for chunks ≥ 64, 3e-2 bf16;
-                state at 1e-4 / 1e-2); decode attention over the reference
-                test shapes, glm4-9b's and zamba2-7b's decode shapes, for
+                starting state, zamba2-7b's serving shape, three 16-step
+                chunks, 32-step chunks and a 2048-step scan (y at 2e-5 f32,
+                8e-5 for chunks ≥ 64, 3e-2 bf16; state at 1e-4 / 1e-2);
+                decode attention over the reference test shapes, glm4-9b's
+                and zamba2-7b's decode shapes, a 4096-slot cache full and
+                with most of the cluster past pos, a wrapped ring, pos -1
+                and a 32768-slot cache whose scores spill to scratch, for
                 f32, bf16 and f32 queries over a bf16 cache.
   4. planner  — the planner on CUDA against the planner on the CPU for the
                 glm4-9b fleet: equal groups/partitions/offload sets/f_e,
@@ -58,7 +61,8 @@ exit code:
   9. times    — per call at the serving shapes, under a CUDA graph and
                 eager: each kernel, its plain version, the library call
                 where one exists (scaled_dot_product_attention, timed only),
-                and the bound from bytes and FLOPs.
+                and the bound from bytes and FLOPs; decode attention also
+                over a 4096-slot cache of glm4-9b's heads (timed only).
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -241,6 +245,8 @@ GLA_SHAPES = [  # (b, L, h, dk, dv, chunk, with_state)
     (1, 48, 2, 32, 32, 16, False),
     (2, 37, 3, 64, 64, 16, False),           # ragged L
     (2, 48, 4, 64, 64, 16, True),            # from a non-zero state
+    (USERS, 48, 112, 64, 64, 16, False),     # three chunks of the wave's 16
+    (2, 70, 3, 64, 64, 32, True),            # 32-step chunks, ragged
     (1, 2048, 8, 64, 64, 256, True),         # a long scan
 ]
 ZAMBA_GLA = (USERS, SEQ, 112, 64, 64, 16, False)   # zamba2-7b's wave, b=6
@@ -291,7 +297,14 @@ DECODE_SHAPES = [  # (b, L, h, kv, hd, pos)
     (2, 32, 4, 1, 16, 100),                  # ring, wrapped
     (1, 64, 2, 2, 128, 10),                  # ring, not yet full
     (2, 64, 4, 4, 16, 0),                    # first token
+    (2, 64, 4, 2, 32, -1),                   # no valid slot
+    (2, 512, 8, 2, 64, 1300),                # ring, wrapped, split
+    (USERS, 4096, 32, 2, 128, 4095),         # a long cache, all valid
+    (USERS, 4096, 32, 2, 128, 1000),         # most shares past pos
+    (1, 32768, 16, 1, 128, 20000),           # scores spill to scratch
 ]
+# a long cache of glm4-9b's heads, timed beside the 40-slot steps
+LONG_DECODE = (USERS, 4096, 32, 2, 128, 4095)
 # the decode phases' shapes: 6 users, a 40-slot cache at its last step
 GLM_DECODE = (USERS, 40, 32, 2, 128, 39)
 ZAMBA_DECODE = (USERS, 40, 32, 32, 112, 39)
@@ -733,10 +746,12 @@ def times(b: int, sweep_args, b_z: int) -> dict:
                 "f32", gla, gla_bound) + " (no single PyTorch call "
           "computes it)")
 
-    # decode at each model's last step: f32 queries over the bf16 cache
+    # decode at each model's last step, and over a long cache: f32 queries
+    # over the bf16 cache
     dec = {}
     for label, dshape in (("glm4-9b", GLM_DECODE),
-                          ("zamba2-7b", ZAMBA_DECODE)):
+                          ("zamba2-7b", ZAMBA_DECODE),
+                          ("glm4-9b heads, long cache", LONG_DECODE)):
         dq, dk_, dv_, pos = _decode_inputs(dshape, torch.float32,
                                            torch.bfloat16, seed=1)
         db, dL, dh, dkv, dhd, dpos = dshape

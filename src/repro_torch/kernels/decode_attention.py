@@ -5,7 +5,10 @@ Replaces the Pallas TPU kernel ``src/repro/kernels/decode_attention.py:61``
 (``decode_attention_kernel``) and stands in for
 ``src/repro/models/layers.py:161`` (``decode_attention``).  The kernel is
 ``csrc/decode_attention.cu`` (see its header for the design and what
-bounds it on an H100).
+bounds it on an H100).  It splits each (batch, kv head)'s cache over a
+cluster of CTAs; :func:`split_plan` picks the cluster's size and each
+CTA's share of the slots here, from L, B·KV and the SM count, never from
+``pos``.
 
 Layout is the model's: q ``(B, 1, H, hd)``, caches ``(B, L, KV, hd)`` with
 ``H = KV·n_rep``, query head ``h`` reading kv head ``h // n_rep``; ``pos``
@@ -28,6 +31,13 @@ from .build import load_library
 _NEG_INF = -1e30
 HD_MAX = 128
 REP_MAX = 16
+#: CTAs per cluster: the portable cluster size
+SPLIT_MAX = 8
+#: fewest cache slots worth a CTA of their own
+MIN_SHARE = 4
+#: a CTA's scores (n_rep x share float32) above this go to a scratch
+#: buffer instead of shared memory
+SCORE_SMEM_MAX = 64 * 1024
 DTYPES = (torch.float32, torch.bfloat16)
 _NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -69,6 +79,22 @@ def decode_attention_plain(q, k, v, pos):
     return o.reshape(b, 1, h, hd).to(q.dtype)
 
 
+def split_plan(L: int, bkv: int, n_rep: int, n_sm: int):
+    """The kernel's launch geometry for a cache of ``L`` slots, ``bkv`` =
+    B·KV (batch, kv head) pairs of ``n_rep`` query heads each, on a card of
+    ``n_sm`` SMs: ``(nsplit, share, spill)``.  Each pair gets one cluster
+    of ``nsplit`` CTAs (at most :data:`SPLIT_MAX`, and no more CTAs in all
+    than the card has SMs while a pair has more than one, so that one wave
+    runs them all), CTA ``r`` the slots ``[r·share, (r+1)·share)``, none of
+    them empty; ``spill`` says that a CTA's ``n_rep × share`` float32
+    scores exceed :data:`SCORE_SMEM_MAX` and go to a scratch buffer.  It
+    depends on the shapes and the card only, never on ``pos``."""
+    nsplit = max(1, min(SPLIT_MAX, n_sm // bkv, -(-L // MIN_SHARE)))
+    share = -(-L // nsplit)
+    nsplit = -(-L // share)
+    return nsplit, share, 4 * n_rep * share > SCORE_SMEM_MAX
+
+
 def _launch(q, k, v, pos):
     for name, t in (("q", q), ("k", k), ("v", v), ("pos", pos)):
         if not t.is_cuda:
@@ -91,16 +117,23 @@ def _launch(q, k, v, pos):
     fn = getattr(lib, f"decode_attention_{_NAMES[q.dtype]}_"
                       f"{_NAMES[k.dtype]}")
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     strides = (ctypes.c_longlong * 8)(
         q.stride(0), q.stride(2), *k.stride()[:3], *v.stride()[:3])
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    nsplit, share, spill = split_plan(L, b * kv, n_rep, n_sm)
+    scratch = (torch.empty(b * kv * nsplit * n_rep * share,
+                           dtype=torch.float32, device=q.device)
+               if spill else None)
     o = torch.empty(b, 1, h, hd, dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
                 o.data_ptr(), b, kv, L, hd, n_rep, 1.0 / math.sqrt(hd),
-                strides, stream)
+                strides, stream, nsplit, share,
+                None if scratch is None else scratch.data_ptr())
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {rc}")

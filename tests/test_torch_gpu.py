@@ -58,12 +58,18 @@ def test_flash_kernel_matches_plain_on_card(cuda):
 def test_gla_kernel_matches_plain_on_card(cuda):
     """f32 at 2e-5 (8e-5 for chunks ≥ 64) and bf16 at 3e-2, states at
     1e-4 / 1e-2: the reference kernel tests' tolerances.  Ragged L, a
-    starting state, Dk != Dv and a strided v (the Mamba2 mixer's view)."""
+    starting state, Dk != Dv, a strided v (the Mamba2 mixer's view),
+    chunks of 8 to 32 steps (the short-chunk kernel) and of 128 (the tiled
+    one), and rows too short for 16-byte loads."""
     g = torch.Generator(device=cuda).manual_seed(0)
     for dtype in (torch.float32, torch.bfloat16):
         for (b, L, h, dk, dv, chunk, with_state) in [
                 (2, 32, 2, 16, 16, 8, False), (1, 64, 4, 8, 24, 16, False),
-                (2, 37, 3, 64, 64, 16, True), (1, 300, 2, 64, 32, 128, True)]:
+                (2, 37, 3, 64, 64, 16, True), (1, 300, 2, 64, 32, 128, True),
+                (6, 48, 112, 64, 64, 16, False),   # three serving chunks
+                (2, 70, 3, 64, 64, 32, True),      # 32-step chunks
+                (1, 50, 2, 64, 48, 24, False),     # a chunk of 24
+                (1, 20, 2, 6, 10, 8, True)]:       # rows of 6 and 10
             rnd = lambda *s, scale=1.0: (torch.randn(
                 *s, generator=g, device=cuda) * scale)
             q = rnd(b, L, h, dk).to(dtype)
@@ -87,13 +93,19 @@ def test_gla_kernel_matches_plain_on_card(cuda):
 def test_decode_kernel_matches_plain_on_card(cuda):
     """The reference's decode sweep shapes plus glm4-9b's (16 query heads
     per kv head, hd 128) and zamba2-7b's (hd 112), each dtype pairing of
-    q and cache, pos read from the card; f32 caches at 2e-5, bf16 at
+    q and cache, pos read from the card; long caches split over a cluster
+    (most shares past the valid slots at pos 1000; a ring that wrapped;
+    scores spilled to scratch at 32768 slots), no valid slot (pos -1) and
+    rows too short for 16-byte loads (hd 12); f32 caches at 2e-5, bf16 at
     3e-2."""
     g = torch.Generator(device=cuda).manual_seed(1)
     shapes = [(2, 64, 4, 2, 32, 40), (1, 128, 8, 8, 64, 127),
               (2, 32, 4, 1, 16, 100), (1, 64, 2, 2, 128, 10),
               (2, 64, 4, 4, 16, 0), (6, 40, 32, 2, 128, 35),
-              (6, 40, 32, 32, 112, 39), (1, 77, 16, 1, 64, 50)]
+              (6, 40, 32, 32, 112, 39), (1, 77, 16, 1, 64, 50),
+              (6, 4096, 32, 2, 128, 4095), (6, 4096, 32, 2, 128, 1000),
+              (2, 512, 8, 2, 64, 1300), (2, 64, 4, 2, 32, -1),
+              (1, 32768, 16, 1, 128, 20000), (1, 30, 6, 2, 12, 20)]
     for qd, cd in [(torch.float32, torch.float32),
                    (torch.bfloat16, torch.bfloat16),
                    (torch.float32, torch.bfloat16),

@@ -5,6 +5,9 @@ reference's kernels run in interpret mode, as tests/kernels/ runs them.
 Inputs come from numpy with a fixed seed and go to both packages.  The
 CUDA kernels themselves are held against their plain versions by
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py`` on the card."""
+import inspect
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,7 +22,10 @@ from repro_torch.core import (make_edge_profile, make_fleet,
                               mobilenet_v2_profile)
 from repro_torch.kernels import (decode_attention_op, flash_attention_op,
                                  gla_scan_op, jdob_sweep_op)
-from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.decode_attention import (SCORE_SMEM_MAX, SPLIT_MAX,
+                                                  decode_attention,
+                                                  decode_attention_plain,
+                                                  split_plan)
 from repro_torch.kernels.gla_scan import gla_scan
 from repro_torch.kernels.jdob_sweep import (jdob_sweep_kernel,
                                             jdob_sweep_plain)
@@ -112,6 +118,101 @@ def test_decode_plain_matches_reference_kernel(dtype, b, L, h, kv, hd, bk,
     oracle = decode_attention_ref(tq, tk, tv, pos, ring=ring)
     torch.testing.assert_close(got.float(), oracle.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
+
+
+def _split_decode(q, k, v, pos: int, nsplit: int):
+    """The CUDA decode kernel's algorithm in PyTorch: the cache cut into
+    ``nsplit`` contiguous shares; per share the scores and their max m and
+    sum l per head (-inf and 0 for a share with no visited slot); the
+    shares' (m, l) merged in rank order; each share's probabilities
+    rounded to the cache's dtype with the merged (m, l) and multiplied by
+    its V; the partial outputs summed in rank order."""
+    b, _, h, hd = q.shape
+    L, kv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, kv, h // kv, hd).float()
+    share = -(-L // nsplit)
+    n_valid = 0 if pos < 0 else min(pos + 1, L)
+    k_end = n_valid if n_valid > 0 else L
+    scores, ms, ls = [], [], []
+    for r in range(nsplit):
+        lo, hi = r * share, min((r + 1) * share, k_end)
+        if lo >= hi:
+            scores.append(None)
+            ms.append(torch.full(qg.shape[:3], -math.inf))
+            ls.append(torch.zeros(qg.shape[:3]))
+            continue
+        s = torch.einsum("bkgd,bjkd->bkgj", qg, k[:, lo:hi].float()) \
+            / math.sqrt(hd)
+        if n_valid == 0:
+            s = torch.full_like(s, -1e30)
+        m = s.amax(-1)
+        scores.append(s)
+        ms.append(m)
+        ls.append(torch.exp(s - m[..., None]).sum(-1))
+    m_all = torch.stack(ms).amax(0)
+    l_all = torch.zeros_like(m_all)
+    for m, l in zip(ms, ls):
+        l_all = l_all + l * torch.exp(m - m_all)
+    o = torch.zeros(*qg.shape)
+    for r, s in enumerate(scores):
+        if s is None:
+            continue
+        p = torch.exp(s - m_all[..., None]) / l_all[..., None]
+        vr = v[:, r * share:r * share + s.shape[-1]].float()
+        o = o + torch.einsum("bkgj,bjkd->bkgd", p.to(v.dtype).float(), vr)
+    return o.reshape(b, 1, h, hd).to(q.dtype)
+
+
+#: pos on a (2, 24, 8 over 2 kv heads, hd 16) cache: no valid slot, the
+#: first, a middle one (8 shares: the last five past it), the last, and a
+#: ring cache that has wrapped
+SPLIT_POS = [(-1, False), (0, False), (9, False), (23, False), (61, True)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pos,ring", SPLIT_POS)
+def test_decode_split_matches_plain_and_reference_kernel(dtype, pos, ring):
+    """The CUDA kernel's split of the cache over 1, 3 and 8 CTAs, emulated
+    in PyTorch, against the plain version (the model path's single
+    softmax) and the reference's Pallas kernel in interpret mode: f32 at
+    2e-5, bf16 at 3e-2."""
+    b, L, h, kv, hd = 2, 24, 8, 2, 16
+    rng = np.random.default_rng(3)
+    q, k, v = (_np_rand(rng, s) for s in ((b, 1, h, hd), (b, L, kv, hd),
+                                          (b, L, kv, hd)))
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    want = ref_decode_op(*(jnp.asarray(x).astype(jd) for x in (q, k, v)),
+                         jnp.asarray(pos), ring=ring, block_k=8,
+                         interpret=True)
+    tq, tk, tv = (torch.from_numpy(x).to(td) for x in (q, k, v))
+    plain = decode_attention_plain(tq, tk, tv, torch.tensor(pos))
+    for nsplit in (1, 3, 8):
+        got = _split_decode(tq, tk, tv, pos, nsplit)
+        assert got.dtype == td and got.shape == (b, 1, h, hd)
+        torch.testing.assert_close(got.float(), plain.float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+        _close(got, want, TOL[dtype], TOL[dtype])
+
+
+@pytest.mark.parametrize("bkv,n_rep", [(12, 16), (192, 1), (1, 16), (40, 4),
+                                       (2, 3)])
+def test_decode_split_plan_covers_every_cache_length(bkv, n_rep):
+    """The decode kernel's launch geometry for every L up to 65536: at
+    most 8 CTAs per cluster and no empty one, every slot in a share, no
+    more CTAs than SMs once a cache is split, scores spilled exactly when
+    a share's do not fit in shared memory.  It takes no ``pos``."""
+    assert "pos" not in inspect.signature(split_plan).parameters
+    n_sm = 132
+    for L in range(1, 65537):
+        nsplit, share, spill = split_plan(L, bkv, n_rep, n_sm)
+        assert 1 <= nsplit <= SPLIT_MAX
+        assert (nsplit - 1) * share < L <= nsplit * share
+        assert nsplit == 1 or bkv * nsplit <= n_sm
+        assert spill == (4 * n_rep * share > SCORE_SMEM_MAX)
+    assert split_plan(40, 12, 16, n_sm) == (8, 5, False)      # glm4-9b
+    assert split_plan(40, 192, 1, n_sm) == (1, 40, False)     # zamba2-7b
+    assert split_plan(4096, 12, 16, n_sm) == (8, 512, False)
+    assert split_plan(32768, 1, 16, n_sm) == (8, 4096, True)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
